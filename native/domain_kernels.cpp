@@ -5,7 +5,7 @@
 // stream-compaction functors on the GPU (cuda_polygon.cu:586-655,
 // cuda_polygon.cuh:180-292), and the polygon rasterizer (polygon_class.cpp).
 // Here the host-side generators are C++ with OpenMP; the Python layer
-// (correlation_tpu.domains) falls back to NumPy when the shared library is
+// (correlation_jax.domains) falls back to NumPy when the shared library is
 // not built.
 //
 // Build: make -C native   (produces libcorrelation_native.so)

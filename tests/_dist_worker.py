@@ -21,7 +21,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from correlation_tpu.parallel.mesh import (  # noqa: E402
+from correlation_jax.parallel.mesh import (  # noqa: E402
     init_distributed,
     make_mesh,
 )
@@ -40,15 +40,15 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from correlation_tpu.config import (  # noqa: E402
+from correlation_jax.config import (  # noqa: E402
     FittingModel,
     Interpolation,
     PyramidConfig,
     SolverConfig,
 )
-from correlation_tpu.domains import make_batch  # noqa: E402
-from correlation_tpu.engine import correlate  # noqa: E402
-from correlation_tpu.ops.pyramid import build_pyramid  # noqa: E402
+from correlation_jax.domains import make_batch  # noqa: E402
+from correlation_jax.engine import correlate  # noqa: E402
+from correlation_jax.ops.pyramid import build_pyramid  # noqa: E402
 from synthetic import Speckle  # noqa: E402
 
 

@@ -7,7 +7,7 @@ normal-equation assembly (interpolation_class.cpp:671-764), and the
 LM-damped Gauss-Newton loop with the saved-parameter optimization
 (correlation_class.cpp:349-640).
 
-Deliberately written independently of correlation_tpu internals (its own
+Deliberately written independently of correlation_jax internals (its own
 constraint construction, its own linear solves) so that agreement between the
 two is a meaningful check.
 """
@@ -24,7 +24,16 @@ FLT_MAX = float(np.finfo(np.float32).max)
 # ---------------------------------------------------------------------------
 
 
-def warp(model: str, p, x, y, cx, cy):
+def warp(model: str, p, x, y, cx, cy, positions: str = "float64"):
+    """Warped position of (x, y).  positions="float64" evaluates in
+    float64; "float32" / "float32_fma" reproduce a float32 device's
+    rounding of the same formula, left to right, each product rounded
+    or fused into the following add.  Nearest sampling is discontinuous
+    at half pixels, so only a position rounded like the device's rounds
+    to the same pixel when a sample lands within float32 resolution
+    (6e-5 px at x ~ 1000) of a boundary."""
+    if positions != "float64":
+        return _warp_f32(model, p, x, y, cx, cy, positions == "float32_fma")
     if model == "U":
         return x + p[0], y
     if model == "UV":
@@ -37,6 +46,30 @@ def warp(model: str, p, x, y, cx, cy):
             x + p[0] + p[2] * dx + p[3] * dy,
             y + p[1] + p[4] * dx + p[5] * dy,
         )
+    raise ValueError(model)
+
+
+def _warp_f32(model, p, x, y, cx, cy, fma: bool):
+    f = np.float32
+    p = [f(v) for v in p]
+    x, y = f(x), f(y)
+
+    def mul_add(a, b, c):  # a * b + c
+        if fma:
+            return f(float(a) * float(b) + float(c))
+        return f(a * b) + c
+
+    if model == "U":
+        return float(x + p[0]), float(y)
+    if model == "UV":
+        return float(x + p[0]), float(y + p[1])
+    dx, dy = x - f(cx), y - f(cy)
+    if model == "UVQ":
+        return (float(mul_add(-p[2], dy, x + p[0])),
+                float(mul_add(p[2], dx, y + p[1])))
+    if model == "AFFINE":
+        return (float(mul_add(p[3], dy, mul_add(p[2], dx, x + p[0]))),
+                float(mul_add(p[5], dy, mul_add(p[4], dx, y + p[1]))))
     raise ValueError(model)
 
 
@@ -183,10 +216,12 @@ INTERP = {
 # ---------------------------------------------------------------------------
 
 
-def assemble(model, interp, und_img, def_img, pts, cx, cy, params):
+def assemble(model, interp, und_img, def_img, pts, cx, cy, params,
+             positions="float64"):
     """Serial A/b/chi assembly (interpolation_class.cpp:671-764).
 
     pts: [P, 2] float level coordinates.  Returns (A, b, chi, error).
+    positions: arithmetic of the warped positions (see warp).
     """
     num_p = NP_OF[model]
     a_mat = np.zeros((num_p, num_p))
@@ -196,7 +231,7 @@ def assemble(model, interp, und_img, def_img, pts, cx, cy, params):
     h_img, w_img = und_img.shape
     fn = INTERP[interp]
     for x, y in pts:
-        xd, yd = warp(model, params, x, y, cx, cy)
+        xd, yd = warp(model, params, x, y, cx, cy, positions)
         wv, dwdx, dwdy, valid = fn(def_img, xd, yd)
         if not valid:
             error = True
@@ -240,11 +275,13 @@ def newton_raphson(
     levels=(2, 1, 0),
     max_iters=50,
     precision=1e-3,
+    positions="float64",
 ):
     """Full coarse-to-fine LM solve for ONE subset
     (correlation_class.cpp:349-640).
 
     und_pyramid/def_pyramid: lists of [H, W] float images (level index).
+    positions: arithmetic of the warped positions (see warp).
     Returns dict(params, chi, iterations, error).
     """
     p = np.array(params0, np.float64)
@@ -276,7 +313,7 @@ def newton_raphson(
         def_img = def_pyramid[level]
 
         a_mat, b_vec, chi, err = assemble(
-            model, interp, und_img, def_img, pts, cx, cy, p
+            model, interp, und_img, def_img, pts, cx, cy, p, positions
         )
         if err:
             p[: min(2, len(p))] *= 2.0 ** (level - 0)
@@ -302,7 +339,8 @@ def newton_raphson(
             else:
                 p = last_good.copy()
                 a_mat, b_vec, chi, err = assemble(
-                    model, interp, und_img, def_img, pts, cx, cy, p
+                    model, interp, und_img, def_img, pts, cx, cy, p,
+                    positions,
                 )
                 if err:
                     error = "interp_out_of_image"
@@ -313,7 +351,7 @@ def newton_raphson(
 
             p = tentative.copy()
             a_mat, b_vec, chi, err = assemble(
-                model, interp, und_img, def_img, pts, cx, cy, p
+                model, interp, und_img, def_img, pts, cx, cy, p, positions
             )
             if err:
                 error = "interp_out_of_image"

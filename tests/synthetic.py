@@ -36,6 +36,56 @@ class Speckle:
             img = np.floor(img)
         return img.astype(np.float32)
 
+    def shifted_image(
+        self,
+        u: float = 0.0,
+        v: float = 0.0,
+        quantize: bool = False,
+        cutoff: float = 5.0,
+    ) -> np.ndarray:
+        """Translated image def(z) = f(z - (u, v)), rendered fast.
+
+        Each Gaussian is evaluated only on the pixels within cutoff*sigma
+        of its centre in x and in y (a cut below 200*exp(-cutoff^2/2)
+        grey levels: 7.5e-4 at 5), so megapixel frames render in about a
+        second instead of minutes.  The cut field is itself exactly
+        translated, so und(x) == def(x + (u, v)) still holds.
+        """
+        h, w = self.h, self.w
+        cx = self.cx + u
+        cy = self.cy + v
+        r = int(np.ceil(cutoff * self.sig.max()))
+        offs = np.arange(-r, r + 1)
+        acc = np.zeros(h * w)
+        for lo in range(0, len(cx), 2048):
+            sl = slice(lo, lo + 2048)
+            xs = np.floor(cx[sl])[:, None] + offs  # [n, 2r+1]
+            ys = np.floor(cy[sl])[:, None] + offs
+            s2 = (2.0 * self.sig[sl] ** 2)[:, None]
+            dx = xs - cx[sl][:, None]
+            dy = ys - cy[sl][:, None]
+            lim = (cutoff * self.sig[sl])[:, None]
+            gx = np.where(
+                (np.abs(dx) <= lim) & (xs >= 0) & (xs < w),
+                np.exp(-dx * dx / s2), 0.0,
+            )
+            gy = np.where(
+                (np.abs(dy) <= lim) & (ys >= 0) & (ys < h),
+                self.amp[sl][:, None] * np.exp(-dy * dy / s2), 0.0,
+            )
+            vals = gy[:, :, None] * gx[:, None, :]
+            idx = (
+                np.clip(ys, 0, h - 1)[:, :, None] * w
+                + np.clip(xs, 0, w - 1)[:, None, :]
+            ).astype(np.int64)
+            acc += np.bincount(
+                idx.ravel(), weights=vals.ravel(), minlength=h * w
+            )
+        img = np.clip(acc.reshape(h, w) + 20.0, 0.0, 255.0)
+        if quantize:
+            img = np.floor(img)
+        return img.astype(np.float32)
+
     def warped_image(
         self,
         u: float = 0.0,

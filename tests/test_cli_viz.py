@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from correlation_tpu.config import (
+from correlation_jax.config import (
     DeformationDescription,
     FittingModel,
     Interpolation,
@@ -11,7 +11,7 @@ from correlation_tpu.config import (
     ReferenceImage,
     SolverConfig,
 )
-from correlation_tpu.sequence import SequenceConfig, run_sequence
+from correlation_jax.sequence import SequenceConfig, run_sequence
 from synthetic import Speckle
 
 
@@ -76,7 +76,7 @@ def test_sequence_checkpoint_resume_matches_uninterrupted(tmp_path):
 
 
 def test_viz_preview_and_outlines():
-    from correlation_tpu import viz
+    from correlation_jax import viz
 
     out = viz.rect_outline(10, 20, 50, 60, points_per_edge=8)
     assert out.shape == (33, 2)
@@ -104,7 +104,7 @@ def test_viz_preview_and_outlines():
 
 
 def test_viz_overlay_rendering(tmp_path):
-    from correlation_tpu import viz
+    from correlation_jax import viz
 
     frames = _frames(3, 0.6, -0.4)
     pts = [_grid_pts(30, 30, 62, 62)]
@@ -127,7 +127,7 @@ def test_viz_overlay_rendering(tmp_path):
 def test_cli_end_to_end(tmp_path):
     from PIL import Image
 
-    from correlation_tpu.cli import main
+    from correlation_jax.cli import main
 
     frames = _frames(4, 0.6, -0.4)
     paths = []
@@ -177,7 +177,7 @@ def test_cli_end_to_end(tmp_path):
 def test_cli_argument_errors(tmp_path):
     from PIL import Image
 
-    from correlation_tpu.cli import main
+    from correlation_jax.cli import main
 
     f = _frames(2, 0.0, 0.0)
     paths = []
@@ -202,9 +202,9 @@ def test_warped_inside_points_and_overlay(tmp_path):
     of the undeformed sets, and overlays show the deformed subset pixels."""
     import jax.numpy as jnp
 
-    from correlation_tpu import viz
-    from correlation_tpu.models.warp import warp_points
-    from correlation_tpu.sequence import warped_inside_points
+    from correlation_jax import viz
+    from correlation_jax.models.warp import warp_points
+    from correlation_jax.sequence import warped_inside_points
 
     pts = [_grid_pts(30, 30, 40, 40), _grid_pts(50, 50, 58, 56)]
     centers = np.array([p.mean(axis=0) for p in pts], np.float32)
@@ -245,7 +245,7 @@ def test_cli_backend_and_tuning_flags(tmp_path):
     require editing code) and produce matching results across backends."""
     from PIL import Image
 
-    from correlation_tpu.cli import main
+    from correlation_jax.cli import main
 
     frames = _frames(3, 0.5, -0.3)
     paths = []
@@ -296,7 +296,7 @@ def test_cli_lagrangian_plot_points(tmp_path):
     accumulated material displacement frame over frame."""
     from PIL import Image
 
-    from correlation_tpu.cli import main
+    from correlation_jax.cli import main
 
     du, dv = 1.3, -0.8
     frames = _frames(5, du, dv, h=128, w=128)

@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from correlation_tpu import domains
-from correlation_tpu.polygon import Polygon
+from correlation_jax import domains
+from correlation_jax.polygon import Polygon
 
 
 def test_rectangular_sectors_tiling():
@@ -133,8 +133,8 @@ def test_decimate_vectorized_matches_native_at_scale():
     S=64 sectors (the per-sector native-FFI loop dominated Lagrangian
     frames at dense-grid scale); both paths must produce identical
     per-level point sets, order included."""
-    from correlation_tpu import native
-    from correlation_tpu.domains import _pad_points, decimate_levels
+    from correlation_jax import native
+    from correlation_jax.domains import _pad_points, decimate_levels
 
     rng = np.random.default_rng(7)
     pts = []
@@ -174,13 +174,13 @@ def test_combine_batches_matches_separate_dispatches():
     results must match separate solves."""
     import jax.numpy as jnp
 
-    from correlation_tpu.config import (
+    from correlation_jax.config import (
         FittingModel,
         Interpolation,
         PyramidConfig,
         SolverConfig,
     )
-    from correlation_tpu.domains import (
+    from correlation_jax.domains import (
         AnnularDomain,
         BlobDomain,
         RectangularDomain,
@@ -191,7 +191,7 @@ def test_combine_batches_matches_separate_dispatches():
         rectangular_batch,
         split_result,
     )
-    from correlation_tpu.engine import correlate
+    from correlation_jax.engine import correlate
 
     import sys, os
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -226,7 +226,7 @@ def test_combine_batches_matches_separate_dispatches():
         precision=1e-5,
     )
     und_j, dfm_j = jnp.asarray(und), jnp.asarray(dfm)
-    from correlation_tpu.ops.pyramid import build_pyramid
+    from correlation_jax.ops.pyramid import build_pyramid
 
     und_pyr = build_pyramid(und_j, 1)
     def_pyr = build_pyramid(dfm_j, 1)

@@ -3,16 +3,16 @@ import numpy as np
 import pytest
 
 import oracle
-from correlation_tpu.config import (
+from correlation_jax.config import (
     ErrorCode,
     FittingModel,
     Interpolation,
     PyramidConfig,
     SolverConfig,
 )
-from correlation_tpu.domains import make_batch
-from correlation_tpu.engine import correlate
-from correlation_tpu.ops.pyramid import build_pyramid
+from correlation_jax.domains import make_batch
+from correlation_jax.engine import correlate
+from correlation_jax.ops.pyramid import build_pyramid
 from synthetic import Speckle
 
 
@@ -303,7 +303,7 @@ def test_lm_trajectory_matches_oracle_ragged_domains(domain):
     (VERDICT r2 item 7)."""
     import math
 
-    from correlation_tpu.domains import (
+    from correlation_jax.domains import (
         AnnularDomain,
         BlobDomain,
         annular_batch,
@@ -359,35 +359,6 @@ def test_lm_trajectory_matches_oracle_ragged_domains(domain):
         assert int(res.iterations[i]) == out["iterations"], (
             i, int(res.iterations[i]), out["iterations"],
         )
-
-
-def test_choose_block_vmem_fallback_to_sep():
-    """Oversized subsets whose kernel working set exceeds VMEM at even the
-    minimum block must fall back to the xla_sep backend for that level
-    instead of OOMing Mosaic (ADVICE r2 medium)."""
-    from correlation_tpu.engine import compute_level_statics
-    from correlation_tpu.ops.assemble_v2 import choose_block
-
-    # ~63x63-px subsets: sel scratch alone is 4*72*4096*4B ~ 4.7MB/subset
-    assert choose_block(72, 72, 4096, 1) == 0
-
-    pts = _grid(20, 20, 82, 82)  # 63x63 = 3969 points
-    batch = make_batch([pts, pts], None, 0)
-    img = jnp.zeros((512, 512, 1), jnp.float32)
-    cfg = SolverConfig(
-        model=FittingModel.AFFINE,
-        interpolation=Interpolation.BICUBIC,
-        pyramid=PyramidConfig(0, 1, 0),
-    )
-    statics = dict(compute_level_statics(cfg, batch, [img], "pallas"))
-    assert statics[0].sep  # level routed to the separable-tiles backend
-
-    # sane subsets stay on the Pallas kernel
-    batch_small = make_batch([_grid(20, 20, 40, 40)], None, 0)
-    statics2 = dict(
-        compute_level_statics(cfg, batch_small, [img], "pallas")
-    )
-    assert not statics2[0].sep and statics2[0].block >= 8
 
 
 def test_compaction_cascade_bitwise_parity():
@@ -456,72 +427,11 @@ def test_compaction_cascade_bitwise_parity():
         )
 
 
-def test_compaction_cascade_pallas_interpret_parity():
-    """Compaction through the Pallas kernel path (interpret mode): gathered
-    pixdata units must reproduce the monolithic result exactly."""
-    import dataclasses
-
-    from correlation_tpu.engine import compute_level_statics
-
-    spk = Speckle(128, 128, seed=32)
-    und = spk.image(quantize=True)
-    gy, gx = np.mgrid[0:128, 0:128]
-    dfm = np.floor(spk.eval(gx - gy * 0.01, gy + 0.9)).astype(np.float32)
-
-    pts = []
-    centers = []
-    for cy in range(20, 109, 12):
-        for cx in range(20, 109, 12):
-            pts.append(_grid(cx - 5, cy - 5, cx + 5, cy + 5))
-            centers.append((cx, cy))
-    batch = make_batch(pts, np.array(centers, np.float32), 0)
-    und_pyr = [jnp.asarray(und[..., None])]
-    def_pyr = [jnp.asarray(dfm[..., None])]
-    p0 = np.zeros((batch.num_subsets, 2), np.float32)
-
-    import correlation_tpu.ops.assemble_v2 as v2
-    orig = v2.pl.pallas_call
-
-    def patched(*args, **kw):
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    v2.pl.pallas_call = patched
-    v2.fused_assemble.clear_cache()
-    try:
-        base = SolverConfig(
-            model=FittingModel.UV,
-            interpolation=Interpolation.BICUBIC,
-            pyramid=PyramidConfig(0, 1, 0),
-            precision=1e-6,
-            max_iterations=25,
-            backend="pallas",
-            compact_stages=0,
-        )
-        mono = correlate(base, und_pyr, def_pyr, batch, p0)
-        cfg_c = dataclasses.replace(
-            base, compact_stages=2, compact_factor=2, compact_min=8
-        )
-        comp = correlate(cfg_c, und_pyr, def_pyr, batch, p0)
-    finally:
-        v2.pl.pallas_call = orig
-        v2.fused_assemble.clear_cache()
-    np.testing.assert_array_equal(
-        np.asarray(mono.params), np.asarray(comp.params)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(mono.iterations), np.asarray(comp.iterations)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(mono.error), np.asarray(comp.error)
-    )
-
-
 def test_correlate_many_matches_separate():
     """correlate_many solves heterogeneous domains in one dispatch with
     per-domain tile statics — results must equal separate correlate()
     calls exactly (same statics per domain, same programs)."""
-    from correlation_tpu.engine import correlate_many
+    from correlation_jax.engine import correlate_many
 
     spk = Speckle(128, 128, seed=52)
     und = spk.image(quantize=True)[..., None]
@@ -556,26 +466,64 @@ def test_correlate_many_matches_separate():
         np.testing.assert_allclose(got.params[:, 0], 0.8, atol=0.02)
 
 
-def test_integral_override_demotes_parts():
-    """compute_level_statics(integral_override=False) must force the
-    full-precision 3-part split even for integer-valued images — the
-    chunked driver demotes this way when a later frame of a sequence is
-    not uint8-valued (ADVICE r4: the base frame's verdict must not
-    silently apply to the whole sequence)."""
-    from correlation_tpu.engine import compute_level_statics
-    from correlation_tpu.ops.pyramid import build_pyramid
-
-    spk = Speckle(96, 96, seed=53)
-    img = spk.image(quantize=True)[..., None]  # integer-valued
-    pyr = build_pyramid(jnp.asarray(img), 1)
-    batch = make_batch([_grid(30, 30, 50, 50)], None, 1)
-    cfg = SolverConfig(pyramid=PyramidConfig(0, 1, 1))
-
-    auto = dict(compute_level_statics(cfg, batch, pyr, "pallas"))
-    forced = dict(
-        compute_level_statics(
-            cfg, batch, pyr, "pallas", integral_override=False
-        )
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("backend", ["xla", "xla_sep"])
+def test_translation_recovery_backends(backend, channels):
+    """Both plain assembly backends recover a sub-pixel translation
+    through correlate(), monochrome and RGB (at half-pixel offsets,
+    where the bicubic interpolation bias vanishes by symmetry)."""
+    true_u, true_v = 1.5, -0.5
+    und = np.stack(
+        [Speckle(64, 64, seed=60 + c).image() for c in range(channels)], -1
     )
-    assert all(st.parts == 1 for st in auto.values() if not st.sep)
-    assert all(st.parts == 3 for st in forced.values() if not st.sep)
+    dfm = np.stack(
+        [Speckle(64, 64, seed=60 + c).warped_image(u=true_u, v=true_v)
+         for c in range(channels)], -1,
+    )
+    cfg = SolverConfig(
+        model=FittingModel.UV,
+        interpolation=Interpolation.BICUBIC,
+        pyramid=PyramidConfig(0, 1, 0),
+        precision=1e-6,
+        backend=backend,
+    )
+    batch = make_batch([_grid(20, 20, 44, 44), _grid(16, 24, 36, 40)],
+                       None, 0)
+    res = correlate(
+        cfg, [jnp.asarray(und)], [jnp.asarray(dfm)], batch,
+        np.zeros((2, 2), np.float32),
+    )
+    np.testing.assert_array_equal(np.asarray(res.error), 0)
+    np.testing.assert_allclose(
+        np.asarray(res.params), [[true_u, true_v]] * 2, atol=5e-3
+    )
+
+
+def test_resolve_backend_auto_on_gpu(monkeypatch):
+    """auto picks the backend measured faster on a GPU, and xla_sep on
+    the CPU; an explicit choice is kept."""
+    import dataclasses
+
+    from correlation_jax import engine
+
+    cfg = SolverConfig()
+    assert engine.resolve_backend(cfg) == "xla_sep"  # tests run on CPU
+    monkeypatch.setattr(engine.jax, "default_backend", lambda: "gpu")
+    assert engine.resolve_backend(cfg) == engine._GPU_AUTO_BACKEND
+    assert engine._GPU_AUTO_BACKEND in ("xla", "xla_sep")
+    for b in ("xla", "xla_sep"):
+        assert engine.resolve_backend(
+            dataclasses.replace(cfg, backend=b)
+        ) == b
+
+
+def test_resolve_backend_rejects_removed_kernel():
+    """The removed "pallas" kernel backend is an error to ask for, not a
+    silent fall-back."""
+    import dataclasses
+
+    from correlation_jax.engine import resolve_backend
+
+    for name in ("pallas", "pallas_dma"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            resolve_backend(dataclasses.replace(SolverConfig(), backend=name))

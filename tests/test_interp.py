@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 
 import oracle
-from correlation_tpu.config import Interpolation
-from correlation_tpu.ops.interp import (
+from correlation_jax.config import Interpolation
+from correlation_jax.ops.interp import (
     _bicubic_inverse_matrix,
     precompute_field,
     sample_field,

@@ -5,7 +5,7 @@ import math
 import numpy as np
 import pytest
 
-from correlation_tpu import domains, native
+from correlation_jax import domains, native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built"

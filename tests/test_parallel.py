@@ -4,22 +4,22 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from correlation_tpu.config import (
+from correlation_jax.config import (
     FittingModel,
     Interpolation,
     PyramidConfig,
     SolverConfig,
 )
-from correlation_tpu.domains import make_batch
-from correlation_tpu.engine import _correlate_jit, correlate
-from correlation_tpu.ops.assemble import assemble_normal_equations
-from correlation_tpu.ops.interp import precompute_field, sample_integer
-from correlation_tpu.ops.pyramid import build_pyramid
-from correlation_tpu.parallel.collectives import (
+from correlation_jax.domains import make_batch
+from correlation_jax.engine import _correlate_jit, correlate
+from correlation_jax.ops.assemble import assemble_normal_equations
+from correlation_jax.ops.interp import precompute_field, sample_integer
+from correlation_jax.ops.pyramid import build_pyramid
+from correlation_jax.parallel.collectives import (
     assemble_pixel_sharded,
     make_pixel_mesh,
 )
-from correlation_tpu.parallel.mesh import (
+from correlation_jax.parallel.mesh import (
     make_mesh,
     pad_to_mesh,
     replicate,
@@ -153,11 +153,11 @@ def test_correlate_mesh_argument_matches_unsharded():
 
 
 def test_run_sequence_sharded_matches_unsharded():
-    from correlation_tpu.config import (
+    from correlation_jax.config import (
         DeformationDescription,
         ReferenceImage,
     )
-    from correlation_tpu.sequence import SequenceConfig, run_sequence
+    from correlation_jax.sequence import SequenceConfig, run_sequence
 
     spk = Speckle(80, 80, seed=5)
     frames = [
@@ -185,13 +185,9 @@ def test_run_sequence_sharded_matches_unsharded():
 
 
 def test_init_distributed_noop_single_host(monkeypatch):
-    from correlation_tpu.parallel.mesh import init_distributed
+    from correlation_jax.parallel.mesh import init_distributed
 
-    for k in (
-        "JAX_COORDINATOR_ADDRESS",
-        "COORDINATOR_ADDRESS",
-        "MEGASCALE_COORDINATOR_ADDRESS",
-    ):
+    for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"):
         monkeypatch.delenv(k, raising=False)
     assert init_distributed() is False
 
@@ -246,11 +242,11 @@ def test_run_sequence_lagrangian_sharded_matches_unsharded():
     """The round-5 Lagrangian chained scan under a mesh: the extra carry
     (per-sector integer offsets + chained centers) must shard with the
     subset axis and reproduce the unsharded run."""
-    from correlation_tpu.config import (
+    from correlation_jax.config import (
         DeformationDescription,
         ReferenceImage,
     )
-    from correlation_tpu.sequence import SequenceConfig, run_sequence
+    from correlation_jax.sequence import SequenceConfig, run_sequence
 
     spk = Speckle(112, 112, seed=6)
     frames = [
@@ -281,3 +277,37 @@ def test_run_sequence_lagrangian_sharded_matches_unsharded():
     np.testing.assert_allclose(
         ref[-1].params, [[1.2, -0.9]] * 2, atol=0.25
     )
+
+
+def test_mesh_route_runs_no_collectives_in_lm_loop():
+    """correlate(mesh=) runs each device's shard under shard_map: the
+    compiled program has no collective at all, while GSPMD partitioning
+    of the same jit puts the any(active) all-reduce inside every LM
+    while loop (one per iteration)."""
+    from correlation_jax.engine import _correlate_shardmap_fn, _statics_for
+    from correlation_jax.utils.profiling import hlo_loop_collectives
+
+    spk = Speckle(80, 80, seed=13)
+    und = spk.image(quantize=True)[..., None]
+    dfm = spk.warped_image(u=0.7, v=0.3, quantize=True)[..., None]
+    cfg = SolverConfig(
+        model=FittingModel.UV,
+        interpolation=Interpolation.BICUBIC,
+        pyramid=PyramidConfig(0, 1, 1),
+    )
+    pts = [_grid(14 + 6 * i, 20, 26 + 6 * i, 32) for i in range(8)]
+    batch = make_batch(pts, None, 1)
+    mesh = make_mesh()
+    statics = _statics_for(cfg, batch, und.shape[:2])
+    xy, mask, c0, p0 = shard_inputs(
+        mesh, pad_to_mesh(batch, mesh), np.zeros((8, 2), np.float32)
+    )
+    pyr_u = replicate(mesh, build_pyramid(jnp.asarray(und), 1))
+    pyr_d = replicate(mesh, build_pyramid(jnp.asarray(dfm), 1))
+    args = (pyr_u, pyr_d, xy, mask, c0, p0)
+
+    shard = _correlate_shardmap_fn(cfg, statics, mesh).lower(*args)
+    assert hlo_loop_collectives(shard.compile().as_text()) == (0, 0)
+    gspmd = jax.jit(lambda *a: _correlate_jit(cfg, statics, *a)).lower(*args)
+    total, in_loop = hlo_loop_collectives(gspmd.compile().as_text())
+    assert in_loop >= 2 and in_loop == total  # one per level's LM loop

@@ -1,26 +1,31 @@
 import jax.numpy as jnp
 import numpy as np
 
-from correlation_tpu.ops.pyramid import BINOMIAL_1D, build_pyramid
+from correlation_jax.ops.pyramid import BINOMIAL_1D, build_pyramid
 from synthetic import Speckle
 
 
 def _reference_downsample(src: np.ndarray) -> np.ndarray:
     """Direct serial transcription of the downsample semantics
     (pyramid_class.cpp:92-126): 5x5 kernel around source (2ti, 2tj),
-    zero border, uint8 truncation."""
-    kernel = np.outer(BINOMIAL_1D, BINOMIAL_1D).astype(np.float32)
+    zero border, uint8 truncation — in exact integer arithmetic (the
+    weights are multiples of 1/400)."""
+    kernel = np.rint(np.outer(BINOMIAL_1D, BINOMIAL_1D) * 400).astype(
+        np.int64
+    )
+    assert kernel.sum() == 400
+    src = src.astype(np.int64)
     sr, sc = src.shape
     tr, tc = sr // 2, sc // 2
     out = np.zeros((tr, tc), np.float32)
     for tj in range(1, tr - 1):
         for ti in range(1, tc - 1):
             sj, si = 2 * tj, 2 * ti
-            acc = np.float32(0)
+            acc = 0
             for dj in range(-2, 3):
                 for di in range(-2, 3):
                     acc += src[sj + dj, si + di] * kernel[dj + 2, di + 2]
-            out[tj, ti] = np.floor(acc)
+            out[tj, ti] = acc // 400
     return out
 
 
@@ -34,11 +39,8 @@ def test_pyramid_matches_reference_semantics():
     got2 = np.asarray(levels[2])[..., 0]
     assert got1.shape == ref1.shape
     assert got2.shape == ref2.shape
-    # float32 conv vs serial accumulation can flip a truncation by 1 count
-    # at exact-integer boundaries; require near-total agreement.
-    assert np.abs(got1 - ref1).max() <= 1.0
-    assert (got1 == ref1).mean() > 0.99
-    assert np.abs(got2 - ref2).max() <= 1.0
+    np.testing.assert_array_equal(got1, ref1)
+    np.testing.assert_array_equal(got2, ref2)
 
 
 def test_pyramid_borders_zero_and_dims():

@@ -4,15 +4,15 @@ large displacements need a real seed)."""
 
 import numpy as np
 
-from correlation_tpu.config import (
+from correlation_jax.config import (
     FittingModel,
     Interpolation,
     PyramidConfig,
     SolverConfig,
 )
-from correlation_tpu.domains import make_batch
-from correlation_tpu.engine import correlate
-from correlation_tpu.ops.seed import (
+from correlation_jax.domains import make_batch
+from correlation_jax.engine import correlate
+from correlation_jax.ops.seed import (
     global_guess_from_pair,
     phase_correlation_guess,
 )
@@ -33,7 +33,7 @@ def test_auto_seed_unlocks_large_displacement():
     a zero guess; the phase-correlation seed brings the LM solver home."""
     import jax.numpy as jnp
 
-    from correlation_tpu.ops.pyramid import build_pyramid
+    from correlation_jax.ops.pyramid import build_pyramid
 
     spk = Speckle(128, 128, seed=45)
     true_u, true_v = 17.3, -9.6
@@ -75,7 +75,7 @@ def test_per_sector_seed_unlocks_divergent_field():
     phase-correlation seeds converge everywhere.  Exceeds the reference,
     whose per-sector guess customization is only the affine/rotation
     offset about the global center (manager_class.cpp:2609-2660)."""
-    from correlation_tpu.sequence import SequenceConfig, run_sequence
+    from correlation_jax.sequence import SequenceConfig, run_sequence
 
     spk = Speckle(160, 160, seed=46)
     gy, gx = np.mgrid[0:160, 0:160]

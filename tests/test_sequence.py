@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from correlation_tpu.config import (
+from correlation_jax.config import (
     DeformationDescription,
     FittingModel,
     Interpolation,
@@ -9,8 +9,8 @@ from correlation_tpu.config import (
     ReferenceImage,
     SolverConfig,
 )
-from correlation_tpu.report import report_header, write_report
-from correlation_tpu.sequence import SequenceConfig, run_sequence
+from correlation_jax.report import report_header, write_report
+from correlation_jax.sequence import SequenceConfig, run_sequence
 from synthetic import Speckle
 
 
@@ -122,8 +122,8 @@ def test_report_columns():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from correlation_tpu.sequence import initial_track_state
-    from correlation_tpu.utils.checkpoint import (
+    from correlation_jax.sequence import initial_track_state
+    from correlation_jax.utils.checkpoint import (
         load_checkpoint,
         save_checkpoint,
     )
@@ -155,8 +155,8 @@ def test_checkpoint_roundtrip(tmp_path):
 def test_contour_tracking_and_cancel(tmp_path):
     from PIL import Image
 
-    from correlation_tpu.domains import rectangular_contour
-    from correlation_tpu.sequence import run_sequence_from_files
+    from correlation_jax.domains import rectangular_contour
+    from correlation_jax.sequence import run_sequence_from_files
 
     du, dv = 0.62, -0.41
     frames = _frames(4, du, dv)
@@ -201,7 +201,7 @@ def _edge_error_setup():
 def test_error_modes_distinguished(mode):
     """Batched stop-all / stop-frame / continue semantics
     (enums.hpp:80-85, manager_class.cpp:535-546, 793-805, 1493-1494)."""
-    from correlation_tpu.config import ErrorCode, ErrorMode
+    from correlation_jax.config import ErrorCode, ErrorMode
 
     frames, pts = _edge_error_setup()
     cfg = _cfg(
@@ -242,7 +242,7 @@ def test_error_modes_distinguished(mode):
         # previous values (manager_class.cpp:535-546).
         assert records[1].chi[1] == records[0].chi[1]
         assert records[1].iterations[1] == records[0].iterations[1]
-        from correlation_tpu.report import write_report
+        from correlation_jax.report import write_report
 
         csv = write_report(records, reference_first=True)
         rows = [r.split(",") for r in csv.strip().splitlines()[1:]]
@@ -280,7 +280,7 @@ def test_streaming_sequence_bounded_cache(tmp_path):
     ahead + behind + 1 decoded frames."""
     from PIL import Image
 
-    from correlation_tpu.sequence import run_sequence_from_files
+    from correlation_jax.sequence import run_sequence_from_files
 
     du, dv = 0.3, -0.2
     frames = _frames(12, du, dv, h=64, w=64)
@@ -314,7 +314,7 @@ def test_previous_chain_matches_oracle():
     sys.path.insert(0, "tests")
     import oracle
 
-    from correlation_tpu.ops.pyramid import build_pyramid
+    from correlation_jax.ops.pyramid import build_pyramid
     import jax.numpy as jnp
 
     du, dv = 0.57, -0.33
@@ -522,7 +522,7 @@ def test_chunked_lagrangian_stop_frame_matches_per_frame():
     """STOP_FRAME freezing inside the Lagrangian chain: a sector that
     errors keeps its previous params AND its domain keeps advancing by
     the frozen uv (per-frame semantics) — chunked must match."""
-    from correlation_tpu.config import ErrorMode
+    from correlation_jax.config import ErrorMode
 
     du, dv = 1.4, -0.9
     frames = _frames(6, du, dv, h=128, w=128)
@@ -586,7 +586,7 @@ def test_record_points_tracks_lagrangian_domain(tmp_path):
     assert all(r.und_points is None for r in re)
 
     # checkpoint roundtrip preserves the per-record lists
-    from correlation_tpu.utils.checkpoint import (
+    from correlation_jax.utils.checkpoint import (
         load_checkpoint,
         save_checkpoint,
     )

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from correlation_tpu.config import FittingModel, NUM_PARAMS
-from correlation_tpu.models.warp import (
+from correlation_jax.config import FittingModel, NUM_PARAMS
+from correlation_jax.models.warp import (
     best_rotation_affine,
     steepest_descent,
     translate_params,
